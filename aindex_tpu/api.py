@@ -476,9 +476,8 @@ class AIndex:
         return [2 * int(v) for v in engine.get_tf_values(kmers)]
 
     # codes-in queries: device array in -> device uint32 array out. The
-    # full-rate TPU entry points (no string encode, no host round-trip) —
-    # encode once, keep codes on device, query at HBM-gather rate. These
-    # are the paths the BENCH headline times.
+    # full-rate device entry points (no string encode, no host round-trip)
+    # — encode once, keep codes on device, query at device-gather rate.
 
     def get_tf_values_codes_13mer(self, codes, valid=None):
         self._require(self.dense13, "13-mer index")

@@ -103,7 +103,7 @@ def cmd_build_hash(args) -> int:
     from aindex_tpu.core import codec
     from aindex_tpu.index.mphf import MPHF
     if args.kmer_size == K13 and not args.force:
-        print("13-mer mode is code-indexed on TPU (the 2-bit k-mer code is the "
+        print("13-mer mode is code-indexed (the 2-bit k-mer code is the "
               "slot id) — no hash needed. Use --force to build one anyway.")
         return 0
     kmers = []
@@ -270,7 +270,7 @@ def cmd_api_docs(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="aindex-tpu",
-        description="TPU-native k-mer index: build and query pipelines.")
+        description="k-mer index on JAX: build and query pipelines.")
     sub = parser.add_subparsers(dest="command")
 
     p = sub.add_parser("compute-reads", help="FASTQ/FASTA/plain -> .reads + .ridx")

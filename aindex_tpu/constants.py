@@ -14,7 +14,7 @@ CODE_T = 3
 ALPHABET = "ACGT"
 
 # Dense 13-mer mode: the complete k-mer space is indexed directly by the
-# 2-bit code of the k-mer (no MPHF needed on TPU; cf. SURVEY.md section 7.1).
+# 2-bit code of the k-mer (no MPHF needed; cf. SURVEY.md section 7.1).
 K13 = 13
 SPACE_13 = 4**K13  # 67,108,864
 

@@ -122,7 +122,7 @@ def pack_ascii_chunk(chunk: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     0.375 bytes/base instead of 1 for raw ASCII — a 2.67x cut of the
     host->device transfer that bounds build throughput (the reference
     streams raw bytes to its workers, /root/reference/src/
-    count_kmers13.cpp:166-183; a TPU build is ingest-bound instead).
+    count_kmers13.cpp:166-183; a device build is ingest-bound instead).
     Layout (little-endian both levels): base i sits at bits 2*(i%16) of
     word i//16; its validity at bit i%8 of byte i//8 — so the device
     unpack (kernels.encode.unpack_base_codes) is pure broadcast shifts.

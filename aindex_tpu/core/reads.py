@@ -8,7 +8,7 @@ position->read resolution (/root/reference/src/python_wrapper.cpp:65-73),
 rid lookup here is a binary search over the sorted start offsets
 (SURVEY.md section 7.5).
 
-The blob itself is the unit of TPU streaming: k-mer positions are *global
+The blob itself is the unit of device streaming: k-mer positions are *global
 byte offsets* into this blob, exactly as in the reference, so window
 extraction can run on fixed-size overlapping chunks of the blob with no
 read-boundary bookkeeping (separators invalidate windows by themselves).
@@ -253,7 +253,7 @@ def blob_chunks_lazy(blob: np.ndarray, k: int,
     (>= 256): padding a 3 MB blob out to a 16 MB default chunk would spend
     5x the kernel time on newline filler, while power-of-two quantisation
     keeps distinct kernel shapes (each one an XLA compile) to log2 many
-    and 128-aligned for TPU tiling / the packed ingest's 16-base words.
+    and aligned to the packed ingest's 16-base words.
     NOTE: when the requested ``chunk`` is not itself a power of two, the
     quantised single chunk may be LARGER than requested (chunk=3MB over a
     2.5MB blob yields one 4MB piece) — callers sizing buffers from

@@ -4,8 +4,7 @@ The MPHF is the *artifact/build* structure (compact, reference-parity); for
 device queries its lookup walk costs seven scattered gathers per key (3
 g-values + node->slot + 2x checker halves + tf). This table re-packages the
 verified (key -> tf, slot) mapping so a query is exactly TWO 16-byte row
-gathers plus register compares — the TPU-native trade of memory for gather
-count (measured ~2.5x the MPHF query rate on v5e).
+gathers plus register compares — a trade of memory for gather count.
 
 Layout: ``table[2m, 4]`` uint32 rows ``(key_lo, key_hi, tf, slot)``; row
 index = ``mix64(key ^ seed_h) & (m-1)`` (+``m`` for the second half); empty
@@ -144,8 +143,8 @@ def cuckoo_query(table: jax.Array, keys: jax.Array, valid, seed1, seed2,
     """(tf, slot) per key; slot = -1 when absent/invalid.
 
     Two [B, 4]-row gathers + register compares — the whole verified
-    lookup. (This row layout was raced against split u64 key/payload
-    arrays on v5e and is 2x faster.) ``valid=None`` asserts every key is
+    lookup: one row gather brings key and payload together.
+    ``valid=None`` asserts every key is
     a real k-mer code and skips the mask entirely — the codes-in fast
     path; resolved at trace time.
     """

@@ -22,7 +22,7 @@ rank of that node among nonzero values.
 
 Everything here is vectorised numpy over whole key batches; the rank
 directory is expanded once at load into a flat node->rank table so lookups
-are plain gathers (the same TPU trade as aindex_tpu.index.mphf).
+are plain gathers (the same trade as aindex_tpu.index.mphf).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Same construction idea as the reference's vendored emphf library
 (/root/reference/src/emphf/mphf.hpp:21-67: random 3-partite hypergraph,
 peel degree-1 nodes, assign 2-bit g-values so that the sum of the three
-node values mod 3 selects the "owner" node) — but re-architected for TPU:
+node values mod 3 selects the "owner" node) — but re-architected for
+batched device lookups:
 
 * the hash is a Murmur-style 64-bit mixer identical on host (numpy) and
   device (jax), not Jenkins lookup8;

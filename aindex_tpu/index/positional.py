@@ -2,7 +2,7 @@
 
 The reference fills this with per-slot atomic write cursors — racy ordering
 (/root/reference/src/hash.cpp:1024-1051, src/compute_aindex13.cpp:206-215).
-The TPU-native build is sort-based and deterministic (SURVEY.md section 7.4),
+This build is sort-based and deterministic (SURVEY.md section 7.4),
 streaming entirely on device:
 
   phase 1: CSR offsets = exclusive prefix-sum of the tf histogram (already

@@ -1,26 +1,14 @@
 """Quotiented split-half cuckoo table: the device query engine for the
 sparse index.
 
-Round-5 redesign of :mod:`aindex_tpu.index.cuckoo` driven by measured v5e
-gather economics (scripts/race_query23.py). Three laws came out of the
-race, and they pick the layout almost by themselves:
-
-1. fetch FULL rows — consuming only one column of a gathered row lets XLA
-   narrow the gather to 4-byte elements, which are ~2.5x slower;
-2. 8-byte ``[B, 2]``-u32 row gathers are intrinsically faster than
-   16-byte ``[B, 4]`` rows (~109M vs ~79M two-probe queries/s/chip) —
-   but ONLY while the gathered array stays at <= 2^22 rows; past that the
-   rate cliffs to the 16-byte-row rate;
-3. the cliff is PER GATHER OPERAND, not total memory: two separate
-   2^22-row arrays sustain the fast rate where one 2^23-row array drops.
-
-So each cuckoo half lives in its OWN ``uint32[m, 2]`` array of 8-byte
-``(fp, tf)`` rows — for indexes up to ~4M keys both halves sit under the
-cliff and the verified two-probe query runs at the fast rate, past the
->=100M q/s/chip north star (BASELINE.md; the reference loop this replaces
-is get_freq, /root/reference/src/hash.hpp:123-140, at ~2.4M q/s). Larger
-tables stay correct and serve at the measured big-array rate (the chip's
-random-gather roofline — see BENCH methodology).
+A redesign of :mod:`aindex_tpu.index.cuckoo` around the gathers a query
+needs: two 8-byte rows, one per cuckoo half, each consumed whole (a
+gather of one column of a row can be narrowed by XLA to 4-byte elements).
+Each half lives in its OWN ``uint32[m, 2]`` array of ``(fp, tf)`` rows,
+so the verified two-probe query reads 16 bytes per key (the reference
+loop this replaces is get_freq, /root/reference/src/hash.hpp:123-140).
+Whether these layout choices still pay on a GPU, whose random access
+moves 32-byte sectors through a 50 MB L2, is not measured yet.
 
 8 bytes cannot hold a 46-bit key + tf, so keys are *quotiented*: each
 half has its own invertible mixer (an xorshift-multiply bijection on the
@@ -149,8 +137,8 @@ class QuotCuckoo:
 
     @property
     def device(self) -> tuple[jax.Array, jax.Array]:
-        """The two half-tables as SEPARATE device arrays — each stays
-        under the measured per-operand gather-size cliff."""
+        """The two half-tables as SEPARATE device arrays, one gather
+        operand per half."""
         if self._halves is None:
             # concrete even when first touched inside a jit trace (e.g. a
             # resolve closure inside the mesh positional build) — caching

@@ -1,8 +1,8 @@
 """Device-side (JAX) encoding and k-mer window extraction.
 
 The reference extracts k-mers with per-byte scalar loops
-(/root/reference/src/dna_bitseq.hpp:124-151, src/hash.cpp:1006-1022). On TPU
-this becomes a vectorised sliding window over a base-code tensor: k static
+(/root/reference/src/dna_bitseq.hpp:124-151, src/hash.cpp:1006-1022). On the
+device this becomes a vectorised sliding window over a base-code tensor: k static
 shift-or steps produce every window's 2-bit packed code at once, and window
 validity is a difference of prefix sums over an invalid-base indicator —
 no halo seeking, no data-dependent control flow (SURVEY.md section 2.7).
@@ -25,9 +25,9 @@ from aindex_tpu.constants import INVALID_CODE
 def ascii_to_base_codes(ascii_u8: jax.Array) -> jax.Array:
     """ASCII byte tensor -> 2-bit base codes (INVALID_CODE for non-ACGT).
 
-    Pure elementwise arithmetic, no table lookup: per-element gathers are
-    the slowest primitive on the TPU vector unit (a 256-entry LUT gather
-    measured 10x slower than this decode at 23M elements). The ASCII codes
+    Pure elementwise arithmetic, no table lookup: XLA fuses it into the
+    consumer, where a 256-entry table would cost a gather per byte. The
+    ASCII codes
     of A/C/G/T happen to encode the base in bits 1-2: ``x = (c >> 1) & 3``
     gives A=0 C=1 G=3 T=2, and ``x ^ (x >> 1)`` swaps 2<->3 into the
     canonical A=0 C=1 G=2 T=3 (/root/reference/src/kmers.hpp:15-20).
@@ -49,7 +49,7 @@ def unpack_base_codes(packed: jax.Array, validbits: jax.Array) -> jax.Array:
 
     ``packed`` uint32[..., W] carries 16 bases/word, ``validbits``
     uint8[..., 2W] one bit/base (both little-endian). Pure broadcast
-    shift/mask work on the VPU — no gathers.
+    shift/mask work — no gathers.
     """
     shifts = 2 * jnp.arange(16, dtype=jnp.uint32)
     b = ((packed[..., :, None] >> shifts) & 3).astype(jnp.uint8)
@@ -108,7 +108,7 @@ def revcomp_code13(codes: jax.Array, k: int = 13) -> jax.Array:
 
     32-bit analogue of reverseDNA (/root/reference/src/kmers.cpp:355-388):
     complement = NOT of each 2-bit field, then mirror the 2-bit fields and
-    shift down to the low 2k bits. Runs entirely on the VPU.
+    shift down to the low 2k bits. Elementwise integer ops only.
     """
     x = (~codes).astype(jnp.uint32)
     m2 = jnp.uint32(0x33333333)

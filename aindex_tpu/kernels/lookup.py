@@ -2,9 +2,9 @@
 
 The reference answers each query with 1-2 Jenkins hashes plus rank pointer
 chasing per k-mer (/root/reference/src/emphf/mphf.hpp:79-89, README's "batch"
-API is a plain per-element C++ loop, src/python_wrapper.cpp:548-563). On TPU
-a batch of queries is one or two HBM gathers — this is where the >=100M q/s
-target comes from (BASELINE.md).
+API is a plain per-element C++ loop, src/python_wrapper.cpp:548-563). Here
+a batch of queries is one or two device-memory gathers (BASELINE.md's
+>=100M q/s target).
 """
 
 from __future__ import annotations

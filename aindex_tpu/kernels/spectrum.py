@@ -2,14 +2,18 @@
 
 The reference reduces k-mer multisets with per-thread ``unordered_map``s that
 are merged under a lock (/root/reference/src/count_kmers.cpp:47-64,334-341).
-The first TPU port of that idea still did the reduction on the host
-(np.unique per chunk); this module moves it onto the device as the classic
-sort-based formulation (SURVEY.md section 2.7: "thread-local maps + merge" ->
+This module does the reduction on the device in the classic sort-based
+formulation (SURVEY.md section 2.7: "thread-local maps + merge" ->
 sort/segment-reduce):
 
   extract canonical windows -> sort codes -> segment boundaries by
   neighbour-compare -> segment-id = prefix sum -> counts via scatter-add,
-  keys via scatter-max.
+  keys via scatter-min.
+
+On a GPU the scatters are integer atomics, whose order does not change
+the exact result. A scatter-free variant (two multi-operand pair-sorts plus
+scans) measured the same on an H100 at 2^22 and 2^24 windows, so only this
+one is kept.
 
 Everything is static-shaped: invalid windows sort to a sentinel tail and the
 unique count comes back as a scalar alongside the padded arrays.
@@ -57,81 +61,14 @@ def chunk_spectrum_packed(packed: jax.Array, validbits: jax.Array, k: int):
     return sorted_spectrum(keyed)
 
 
-def _prefer_pair_sort() -> bool:
-    """True on TPU-class backends: the scatter-free two-pair-sort
-    formulation below ran the 4M-key reduction 4.4x faster than the
-    scatter compaction on v5e (0.095 s vs 0.42 s — TPU scatters of
-    millions of updates serialise badly), while on CPU the scatter path
-    is ~8x faster. Resolved at trace time."""
-    import jax
-    return jax.devices()[0].platform not in ("cpu",)
-
-
-def _run_bounds(is_new: jax.Array):
-    """(iota, run_end): for a sorted key array's new-run mask, run_end[i]
-    is the index of the first new run AFTER i — pure scans, no scatter."""
-    from jax import lax
-    n = is_new.shape[0]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    rev_min = lax.cummin(jnp.where(is_new, iota, n)[::-1], axis=0)[::-1]
-    run_end = jnp.concatenate([rev_min[1:], jnp.full((1,), n, jnp.int32)])
-    return iota, run_end
-
-
-def _pair_sort_spectrum(keys: "jax.Array", weights):
-    """Shared TPU formulation for both spectrum reducers: pair-sort the
-    (hi32, lo32) key halves, derive run bounds from scans, compute each
-    run's count (run length, or the weighted prefix-sum difference when
-    ``weights`` is given), and compact the unique records to the front
-    with a second pair-sort. No scatters anywhere."""
-    from jax import lax
-    hi = (keys >> jnp.uint64(32)).astype(jnp.uint32)
-    lo = keys.astype(jnp.uint32)
-    if weights is None:
-        shi, slo = lax.sort((hi, lo), num_keys=2)
-        w = None
-    else:
-        shi, slo, w = lax.sort((hi, lo, weights.astype(jnp.uint64)),
-                               num_keys=2)
-    is_new = jnp.concatenate(
-        [jnp.ones((1,), bool), (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])])
-    s_hi = jnp.uint32(SENTINEL >> np.uint64(32))
-    s_lo = jnp.uint32(SENTINEL & np.uint64(0xFFFFFFFF))
-    live = ~((shi == s_hi) & (slo == s_lo))
-    iota, run_end = _run_bounds(is_new)
-    first = is_new & live
-    if weights is None:
-        count_first = jnp.where(first, (run_end - iota).astype(jnp.uint32), 0)
-    else:
-        csum = jnp.cumsum(w)
-        end_sum = csum[jnp.maximum(run_end - 1, 0)]
-        start_sum = jnp.where(iota > 0, csum[jnp.maximum(iota - 1, 0)],
-                              jnp.uint64(0))
-        count_first = jnp.where(first, end_sum - start_sum, jnp.uint64(0))
-    chi, clo, counts = lax.sort(
-        (jnp.where(first, shi, s_hi), jnp.where(first, slo, s_lo),
-         count_first), num_keys=2)
-    keys_out = (chi.astype(jnp.uint64) << jnp.uint64(32)) \
-        | clo.astype(jnp.uint64)
-    n_unique = jnp.sum(first).astype(jnp.int32)
-    return keys_out, counts, n_unique
-
-
 @jax.jit
 def sorted_spectrum(keyed: jax.Array):
     """Segment-reduce a flat uint64 key array (SENTINEL = ignore).
 
     Returns (keys[N], counts[N], n_unique) with unique keys sorted ascending
     in the first ``n_unique`` entries.
-
-    TPU path: the scatter-free pair-sort formulation (_pair_sort_spectrum
-    — 4.4x the scatter compaction on v5e). CPU path: the classic segment
-    scatter-add/scatter-min compaction (8x faster there). Resolved at
-    trace time; both bit-identical (tests/test_sparse23.py races them).
     """
     n = keyed.shape[0]
-    if _prefer_pair_sort():
-        return _pair_sort_spectrum(keyed, None)
     s = jnp.sort(keyed)
     is_new = jnp.concatenate(
         [jnp.ones((1,), bool), s[1:] != s[:-1]])
@@ -152,12 +89,8 @@ def sorted_spectrum_weighted(keys: jax.Array, weights: jax.Array):
     The merge step of the sharded multi-device spectrum: inputs are
     already-reduced partial spectra, so each key carries a count. Returns
     (keys[N], counts[N], n_unique) with unique keys sorted ascending.
-    Same TPU/CPU dispatch as ``sorted_spectrum`` (the TPU path is
-    _pair_sort_spectrum with weighted segment sums).
     """
     n = keys.shape[0]
-    if _prefer_pair_sort():
-        return _pair_sort_spectrum(keys, weights)
     order = jnp.argsort(keys)
     s = keys[order]
     w = weights[order].astype(jnp.uint64)

@@ -1,10 +1,11 @@
 """Data-parallel dense 13-mer counting over a device mesh.
 
-TPU-native replacement for the reference's atomic shared-table counting
+Mesh replacement for the reference's atomic shared-table counting
 (/root/reference/src/count_kmers13.cpp:141-160): each device scatter-adds the
 windows of its read shard into a local table, then a single ``psum`` over the
 ``data`` axis merges partials into the replicated table (SURVEY.md §2.7).
-Deterministic — no atomics, no ordering races.
+Integer adds commute, so the result is exact and the same in every run,
+whatever order the GPU's scatter atomics land in.
 """
 
 from __future__ import annotations

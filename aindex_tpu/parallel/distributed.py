@@ -1,19 +1,19 @@
 """Multi-host initialisation and global mesh construction.
 
 The reference is strictly single-node (SURVEY.md §2.7); scaling beyond one
-host is new capability in the TPU rebuild. The model:
+host is new capability in this rebuild. The model:
 
 * every host runs the same program (SPMD) and calls :func:`initialize`
   once before any JAX computation;
 * :func:`global_mesh` builds the (data, index) mesh over ALL devices in the
-  job — ``data`` parallelism rides DCN across hosts (reads are independent,
-  so host-local input pipelines shard naturally by host), ``index``
-  sharding stays intra-slice on ICI where the psum merge is cheap;
+  job — ``data`` parallelism spans hosts (reads are independent, so
+  host-local input pipelines shard naturally by host), ``index`` sharding
+  stays within a host, where the psum merge is cheap;
 * per-host input sharding: :func:`host_read_slice` tells each host which
   slice of an input file list it owns.
 
-Single-process runs (tests, one chip) work unchanged — ``initialize`` is a
-no-op when no cluster environment is detected.
+Single-process runs (tests, one card) work unchanged — ``initialize`` is a
+no-op when no cluster is configured.
 """
 
 from __future__ import annotations
@@ -33,9 +33,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join the multi-host job (jax.distributed) if one is configured.
 
-    With no arguments, relies on the environment (TPU pod metadata or
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). A no-op
-    for single-process runs.
+    With no arguments, reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID. A no-op for single-process runs.
     """
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -47,17 +46,11 @@ def initialize(coordinator_address: str | None = None,
         process_id = int(env) if env else None
 
     if coordinator_address is None and num_processes is None:
-        in_pod = bool(os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",")) or \
-            os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-        if not in_pod:
-            logger.debug("single-process run; skipping jax.distributed")
-            return
-    try:
-        # CPU backend needs an explicit cross-process collectives impl;
-        # harmless elsewhere (TPU collectives ride ICI/DCN natively)
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # pragma: no cover - older jax without the option
-        pass
+        logger.debug("single-process run; skipping jax.distributed")
+        return
+    # the CPU backend needs an explicit cross-process collectives
+    # implementation; GPU collectives go through NCCL regardless
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -70,8 +63,8 @@ def global_mesh(n_index: int = 1):
     """(data, index) mesh over every device in the job.
 
     ``n_index`` devices shard the sparse table's slot dimension (keep these
-    within one host/slice so the query psum rides ICI); the rest carry data
-    parallelism. Device order follows ``jax.devices()``, which groups by
+    within one host so the query psum stays on the host's interconnect);
+    the rest carry data parallelism. Device order follows ``jax.devices()``, which groups by
     process — so consecutive ``data`` rows map to whole hosts and read
     streaming stays host-local.
     """
@@ -165,7 +158,7 @@ def allgather_concat(local: 'np.ndarray'):
     """Concatenate per-process host arrays across all processes, in
     process order (variable first-dim sizes allowed).
 
-    The DCN merge step for host-side partial results (per-host spectrum
+    The cross-host merge step for host-side partial results (per-host spectrum
     shards, positional segments). Single-process: identity."""
     import numpy as np
     if not is_multiprocess():

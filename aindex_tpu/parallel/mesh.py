@@ -9,8 +9,9 @@ parallelism maps onto a JAX device mesh with two axes:
   parallelism over the index dimension; the dense 13-mer table is replicated).
 
 Count partials merge with psum over ``data``; sharded-table queries merge with
-psum over ``index``. On a pod slice both axes ride ICI; across hosts the
-``data`` axis is the natural DCN axis (reads are independent).
+psum over ``index``. The cards of one host are joined all to all, so the mesh
+follows the algorithm alone; across hosts ``data`` is the natural axis to
+split (reads are independent).
 """
 
 from __future__ import annotations

@@ -54,7 +54,7 @@ class BuildConfig:
     profile_dir: str | None = None  # jax.profiler trace output (opt-in)
     dat_path: str | None = None   # pre-computed text spectrum ('kmer\tcount'
     # per line) from an EXTERNAL counter — skips the counting phase, the
-    # TPU-native equivalent of the reference pipeline's jellyfish option
+    # equivalent of the reference pipeline's jellyfish option
     # (/root/reference/scripts/compute_aindex.py:109-187): any counter
     # that can dump text counts can seed the build
     skip_existing: bool = False   # artifact-gated resume (reference
@@ -95,7 +95,7 @@ def prepare_reads(inputs: list[str], read_type: str | None, prefix: str,
     if multi and not dist.should_write():
         # process 0 prepares the shared artifacts; everyone else waits at
         # the barrier, then memory-maps them — a host only ever faults in
-        # the pages of its own mesh rows (SURVEY.md §2.7 DCN data axis)
+        # the pages of its own mesh rows (SURVEY.md §2.7 cross-host data axis)
         dist.barrier("aindex:reads-ready")
         store = ReadsStore.from_reads_file(prefix + ".reads",
                                            prefix + ".ridx", mmap=True)

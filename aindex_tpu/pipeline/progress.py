@@ -2,7 +2,7 @@
 
 The reference renders 1/2/3-bar terminal progress with ETA estimators
 (/root/reference/src/helpers.cpp:7-135, sequence-count sampling at
-src/count_kmers13.cpp:479-536). The TPU build streams fixed-size chunks, so
+src/count_kmers13.cpp:479-536). The device build streams fixed-size chunks, so
 progress is exact: bytes dispatched / total bytes, with throughput and ETA
 from a monotonic clock. Renders an in-place bar on a TTY; falls back to
 rate-limited log lines otherwise (build logs stay readable under nohup/CI).

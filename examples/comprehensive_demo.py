@@ -63,7 +63,7 @@ def main():
     print(f"rid2poses = {idx23.get_rid2poses(km23)}")
     print(f"reads containing it: {len(idx23.get_reads_by_kmer(km23))}")
 
-    section("codes-in device queries (the full-rate TPU path)")
+    section("codes-in device queries (the full-rate device path)")
     from aindex_tpu.core import codec
     codes13, _ = codec.encode_kmers([r[:13] for r in reads[:32]], 13)
     dev_tf = idx13.get_total_tf_values_codes_13mer(codes13)  # device array

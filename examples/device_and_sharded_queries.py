@@ -1,18 +1,19 @@
-"""The TPU-native fast paths: device-resident codes-in queries, the
+"""The device fast paths: device-resident codes-in queries, the
 mesh-sharded engine, and the statistics/dump surface.
 
-* codes-in queries are the >=100M q/s/chip path: encode once, keep the
-  2-bit codes on device, query at gather rate (no string handling, no
-  host round-trip);
+* codes-in queries are the full-rate path: encode once, keep the 2-bit
+  codes on device, query at gather rate (no string handling, no host
+  round-trip);
 * `shard_to(mesh)` moves the sparse index onto a device mesh — the MPHF
-  slots shard by node range, tf/checker by slot range, per-device HBM
+  slots shard by node range, tf/checker by slot range, per-device memory
   falls with mesh size, and EVERY query family keeps working;
 * `set_stats` / `save_values` mirror the reference's coverage-profile
   histogram and slot-ordered text dump.
 
 Run: python examples/device_and_sharded_queries.py
-(on a CPU-only box: JAX_PLATFORMS=cpu
- XLA_FLAGS=--xla_force_host_platform_device_count=8)
+(one GPU skips the mesh demo; several GPUs, or a CPU-only box with
+ JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8,
+ shard over every device)
 """
 
 import numpy as np

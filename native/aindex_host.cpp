@@ -1,6 +1,6 @@
 // aindex_host: native host-side runtime for aindex-tpu.
 //
-// The TPU owns all data-parallel compute (counting, gathers, coverage); this
+// The device owns all data-parallel compute (counting, gathers, coverage); this
 // library owns the inherently-serial / file-I/O phases the reference
 // implements as C++ binaries (SURVEY.md §2.2-2.3):
 //

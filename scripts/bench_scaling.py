@@ -2,10 +2,10 @@
 
 Runs the PUBLIC mesh paths (Dense13Index.build_from_blob(mesh=),
 AIndex.build_from_sequences(mesh=) -> sharded queries) at 1/2/4/8 devices
-and prints a JSON scaling table (also written to SCALING.json when --out).
+and prints a JSON scaling table (also written to the --out file).
 
-On real TPU slices the devices are distinct chips and the table measures
-true scaling over ICI. On a CPU host with
+On a multi-GPU host the devices are distinct cards and the table measures
+true scaling over their links. On a CPU host with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 the "devices" share the
 same physical cores, so wall-clock is NOT expected to improve — that run
 validates functional scaling (bit-exact parity at every mesh size), which
@@ -14,7 +14,7 @@ is what CI uses it for.
 Usage:
   PYTHONPATH=. JAX_PLATFORMS=cpu \
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-  python scripts/bench_scaling.py --mb 4 --out SCALING.json
+  python scripts/bench_scaling.py --mb 4 --out scaling.json
 """
 
 from __future__ import annotations

@@ -18,15 +18,15 @@ READ_LEN = 150
 ERR = 0.003
 
 
-def main():
-    out = sys.argv[1]
-    coverage = float(sys.argv[2]) if len(sys.argv) > 2 else 25.0
-    seed = int(sys.argv[3]) if len(sys.argv) > 3 else 1
+def write_corpus(out: str, coverage: float = 25.0, seed: int = 1,
+                 genome_bp: int = GENOME_BP) -> int:
+    """Write the FASTA read set to ``out``; returns the number of reads.
+    ``genome_bp`` shrinks the genome for tests; everything else is fixed."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    genome = bases[rng.integers(0, 4, size=GENOME_BP)]
-    n_reads = int(GENOME_BP * coverage / READ_LEN)
-    starts = rng.integers(0, GENOME_BP - READ_LEN, size=n_reads)
+    genome = bases[rng.integers(0, 4, size=genome_bp)]
+    n_reads = int(genome_bp * coverage / READ_LEN)
+    starts = rng.integers(0, genome_bp - READ_LEN, size=n_reads)
     with open(out, "w", buffering=1 << 22) as f:
         for i in range(0, n_reads, 4096):
             chunk = starts[i:i + 4096]
@@ -37,6 +37,14 @@ def main():
                 f.write(f">r{i + j}\n")
                 f.write(row.tobytes().decode())
                 f.write("\n")
+    return n_reads
+
+
+def main():
+    out = sys.argv[1]
+    coverage = float(sys.argv[2]) if len(sys.argv) > 2 else 25.0
+    seed = int(sys.argv[3]) if len(sys.argv) > 3 else 1
+    n_reads = write_corpus(out, coverage, seed)
     print(f"{out}: {n_reads} reads, {n_reads * READ_LEN / 1e6:.1f} MB bases, "
           f"{coverage}x of {GENOME_BP / 1e6:.2f} Mbp")
 

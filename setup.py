@@ -34,8 +34,10 @@ class build_py_with_native(build_py):
         shutil.copy2(src, os.path.join(pkg_native, "aindex_host.cpp"))
         out = os.path.join(pkg_native, "libaindex_host.so")
         try:
-            # no -march=native in distributed wheels: portable baseline;
-            # ensure_built() recompiles tuned on first use when g++ exists
+            # no -march=native in distributed wheels: portable baseline.
+            # ensure_built() uses this library as shipped; it compiles
+            # (with -march=native) only when the library is missing or
+            # older than its source
             subprocess.run(
                 ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread",
                  "-shared", "-o", out, src],

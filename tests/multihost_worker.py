@@ -25,7 +25,7 @@ def main() -> None:
     # sharded positional fill with the cross-process segment concat
     build_all([fasta], BuildConfig(prefix=prefix23, k=23, chunk=512,
                                    mesh=mesh))
-    # dense 13-mer count (psum over data incl. DCN), positional skipped to
+    # dense 13-mer count (psum over data across processes), positional skipped to
     # keep the CPU-mesh memory footprint of the test small
     build_all([fasta], BuildConfig(prefix=prefix13, k=13, chunk=512,
                                    mesh=mesh, build_aindex=False))

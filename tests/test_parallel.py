@@ -210,8 +210,7 @@ class TestDistributedHelpers:
     def test_initialize_noop_single_process(self, monkeypatch):
         from aindex_tpu.parallel import distributed
         for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                    "JAX_PROCESS_ID", "TPU_WORKER_HOSTNAMES",
-                    "MEGASCALE_COORDINATOR_ADDRESS"):
+                    "JAX_PROCESS_ID"):
             monkeypatch.delenv(var, raising=False)
         distributed.initialize()  # must not raise or hang
 

@@ -102,42 +102,39 @@ class TestSpectrum:
         np.testing.assert_array_equal(vh, np.asarray(vd)[0])
         np.testing.assert_array_equal(ch[vh], np.asarray(cd)[0][vh])
 
-    def test_pair_sort_formulation_matches_scatter(self, monkeypatch, rng):
-        """The scatter-free TPU formulation (two pair-sorts + scans) must
-        be bit-identical to the CPU scatter formulation — forced here by
-        monkeypatching the backend predicate and clearing the trace
-        cache."""
+    @pytest.mark.parametrize("weighted", [False, True])
+    @pytest.mark.parametrize("case", ["sentinels", "all_equal",
+                                      "all_sentinel"])
+    def test_sorted_spectrum_matches_unique(self, rng, weighted, case):
+        """Both segment reducers against np.unique: duplicates, SENTINEL
+        keys (ignored), one key repeated everywhere, nothing live."""
         import jax.numpy as jnp
         from aindex_tpu.kernels import spectrum as S
         n = 1 << 12
         keys = rng.integers(0, 1 << 46, size=n).astype(np.uint64)
         keys[rng.integers(0, n, size=n // 2)] = \
             keys[rng.integers(0, n, size=n // 2)]
-        keys[:50] = S.SENTINEL
+        if case == "sentinels":
+            keys[rng.integers(0, n, size=50)] = S.SENTINEL
+        elif case == "all_equal":
+            keys[:] = keys[0]
+        else:
+            keys[:] = S.SENTINEL
         w = rng.integers(1, 100, size=n).astype(np.uint64)
-        w[:50] = 0
-        ref = tuple(np.asarray(x) for x in S.sorted_spectrum(jnp.asarray(keys)))
-        ref_w = tuple(np.asarray(x)
-                      for x in S.sorted_spectrum_weighted(jnp.asarray(keys),
-                                                          jnp.asarray(w)))
-        monkeypatch.setattr(S, "_prefer_pair_sort", lambda: True)
-        S.sorted_spectrum._clear_cache()
-        S.sorted_spectrum_weighted._clear_cache()
-        try:
-            got = tuple(np.asarray(x)
-                        for x in S.sorted_spectrum(jnp.asarray(keys)))
-            got_w = tuple(np.asarray(x)
-                          for x in S.sorted_spectrum_weighted(
-                              jnp.asarray(keys), jnp.asarray(w)))
-        finally:
-            monkeypatch.undo()
-            S.sorted_spectrum._clear_cache()
-            S.sorted_spectrum_weighted._clear_cache()
-        for a, b in ((ref, got), (ref_w, got_w)):
-            nu = int(a[2])
-            assert int(b[2]) == nu
-            np.testing.assert_array_equal(a[0][:nu], b[0][:nu])
-            np.testing.assert_array_equal(a[1][:nu], b[1][:nu])
+        live = keys != S.SENTINEL
+        want_k, inv = np.unique(keys[live], return_inverse=True)
+        want_c = np.zeros(want_k.size, np.uint64)
+        np.add.at(want_c, inv, w[live] if weighted else np.uint64(1))
+        if weighted:
+            out = S.sorted_spectrum_weighted(jnp.asarray(keys),
+                                             jnp.asarray(w))
+        else:
+            out = S.sorted_spectrum(jnp.asarray(keys))
+        got_k, got_c, nu = (np.asarray(x) for x in out)
+        assert int(nu) == want_k.size
+        np.testing.assert_array_equal(got_k[:want_k.size], want_k)
+        np.testing.assert_array_equal(got_c[:want_k.size], want_c)
+        assert (got_k[want_k.size:] == S.SENTINEL).all()
 
     def test_sorted_spectrum_counts(self):
         from aindex_tpu.kernels.spectrum import SENTINEL, sorted_spectrum
@@ -398,8 +395,8 @@ class TestQuotCuckoo:
     def test_memory_vs_wide(self, built, rng):
         """Two quotiented slots per 16-byte bucket at load <= 0.8 must
         cost materially less per key than the wide layout's one 16-byte
-        row per slot at load < 0.5 — table bytes are the measured rate
-        limiter on v5e (see module docstring). Compared at a realistic n;
+        row per slot at load < 0.5 — table bytes are what a random gather
+        moves. Compared at a realistic n;
         below ~64K keys the fp-width floor (lb >= 2k-31) dominates and
         the comparison is meaningless."""
         from aindex_tpu.core import codec
